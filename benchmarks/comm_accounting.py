@@ -4,9 +4,8 @@ Real weak-scaling efficiency needs a real pod; what CAN be measured on a
 single host is the communication structure the compiler actually emits:
 how many collective-permutes (halo exchanges) and all-reduces (residual
 max) each Poisson iteration performs, and how many bytes they move, as a
-function of mesh shape, halo batching width, and backend. These counts
-are exact (read from the compiled HLO while-loop body) and are the
-inputs to the analytic weak-scaling model in docs/roadmap.md.
+function of mesh shape and halo batching width. These counts are exact
+(read from the compiled HLO while-loop body).
 
 Usage (8 virtual devices):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -57,21 +56,19 @@ def main():
     ndev = len(jax.devices())
     results = []
     cases = [
-        # (mesh shape, halo width k, use_pallas)
-        ((2, 2, 2), 1, False),
-        ((2, 2, 2), 2, False),
-        ((2, 2, 2), 4, False),
-        ((8, 1, 1), 1, False),
-        ((8, 1, 1), 1, True),
-        ((4, 1, 1), 1, True),
-        ((2, 2, 1), 1, False),
+        # (mesh shape, halo width k)
+        ((2, 2, 2), 1),
+        ((2, 2, 2), 2),
+        ((2, 2, 2), 4),
+        ((8, 1, 1), 1),
+        ((4, 1, 1), 1),
+        ((2, 2, 1), 1),
     ]
-    for shape, k, use_pallas in cases:
+    for shape, k in cases:
         n = math.prod(shape)
         if n > ndev:
             continue
-        bx = 16 if not use_pallas else 16  # per-device block along x
-        byz = 16
+        bx = byz = 16  # per-device block
         nx, ny, nz = bx * shape[0], byz * shape[1], byz * shape[2]
         cfg = ns.preset_multi(nx=nx, nt=1, compat=False, dtype="float32")
         cfg = cfg.replace(numerics=dataclasses.replace(
@@ -80,15 +77,13 @@ def main():
         mesh = make_mesh(shape=shape, devices=jax.devices()[:n])
         solve = build_poisson_shard_map(
             mesh, solver_grid, cfg.physics, cfg.numerics.eps_it, "multi",
-            jnp.float32, halo_width=k, use_pallas=use_pallas,
-            interpret=True)
+            jnp.float32, halo_width=k)
         z = jnp.zeros((nx, ny, nz), jnp.float32)
         hlo = jax.jit(solve).lower(z, z, z).compile().as_text()
         # per-iteration counts: collectives inside the inner fori body
         # appear once in the unrolled-free HLO; normalize by halo batching
         n_cp, n_ar, nbytes = count_collectives(hlo)
         rec = dict(mesh="x".join(map(str, shape)), halo_width=k,
-                   backend="pallas" if use_pallas else "jnp",
                    grid=f"{nx}x{ny}x{nz}",
                    collective_permutes_total=n_cp,
                    all_reduces_total=n_ar,

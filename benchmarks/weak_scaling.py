@@ -6,9 +6,8 @@ time/step and Poisson iters/s for a per-device block of
 (bx, by, bz) across mesh shapes, reporting efficiency relative to the
 single-device run.
 
-On real pod hardware this produces the >=90% weak-scaling target numbers
-(BASELINE.md); on a single host it validates the harness with virtual CPU
-devices (pass --platform cpu with XLA_FLAGS=--xla_force_host_platform_device_count=N).
+On a multi-GPU host this measures weak-scaling efficiency; on a CPU
+host it validates the harness with virtual CPU devices (pass --platform cpu with XLA_FLAGS=--xla_force_host_platform_device_count=N).
 
 Usage:
   python benchmarks/weak_scaling.py --block 64 --meshes 1x1x1,2x1x1,2x2x1,2x2x2 \

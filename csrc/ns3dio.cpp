@@ -3,7 +3,7 @@
 // The reference's I/O runs through native libraries (MAT.jl -> HDF5-family
 // C code, Plots/GR -> C plotting) and blocks the simulation loop while
 // writing (save_array, NavierStokes3D_multi_gpu.jl:27-30). This module is
-// the TPU-framework counterpart: a small C++ runtime that
+// this framework's counterpart: a small C++ runtime that
 //   * converts row-major (C-order) field blocks to the on-disk
 //     column-major (Julia/Fortran order) .bin layout with a cache-blocked
 //     transpose, and

@@ -1,10 +1,10 @@
-"""TPU-native incompressible 3D Navier-Stokes framework.
+"""Incompressible 3D Navier-Stokes framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 mattbuergler/NavierStokes3D (Julia + ParallelStencil + ImplicitGlobalGrid):
 Chorin projection on a staggered MAC grid, damped pseudo-transient
 pressure-Poisson iteration, semi-Lagrangian advection, immersed cylinder,
-spatial domain decomposition over a 3D TPU device mesh.
+spatial domain decomposition over a 3D device mesh.
 """
 
 from .compat_api import run_navierstokes3d, runme

@@ -26,8 +26,8 @@ def run_navierstokes3d(do_vis: bool = False, do_save: bool = False,
     reference's final gather does (:528-535). Defaults to float64 like the
     reference (@init_parallel_stencil(..., Float64, 3), multi_gpu.jl:6),
     which requires jax.config.update('jax_enable_x64', True) first (a clear
-    error is raised otherwise); pass dtype='float32' to opt into the TPU
-    fast path.
+    error is raised otherwise); pass dtype='float32' to opt into the
+    float32 path.
     """
     import jax
 
@@ -76,7 +76,7 @@ def runme(do_vis: bool = True, do_save: bool = False, *,
     """The single-GPU script's driver (NavierStokes3D_gpu.jl:12-173):
     hydrostatic +100 Pa head forcing, .mat snapshots every 10 steps.
     Defaults to float64 like the reference (gpu.jl:6); requires x64 enabled
-    (clear error otherwise), dtype='float32' opts into the TPU fast path."""
+    (clear error otherwise), dtype='float32' opts into the float32 path."""
     from . import ChorinSolver, preset_gpu
     from .io import matio, viz
 

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native incompressible Navier-Stokes solver.
+"""Configuration for the incompressible Navier-Stokes solver.
 
 The reference (mattbuergler/NavierStokes3D) hardcodes all physics/numerics
 constants inside its two driver scripts:
@@ -104,14 +104,13 @@ class NumericsConfig:
     dtype: str = "float64"          # reference runs Float64 throughout
     # Poisson backend: 'pt' = the reference's damped pseudo-transient
     # iteration (parity default); 'fdm' = exact fast-diagonalization
-    # direct solve (tensor-product eigenbases, MXU matmuls; a capability
+    # direct solve (tensor-product eigenbases, dense matmuls; a capability
     # beyond the reference — ops/fdm_poisson.py).
     poisson_backend: str = "pt"
     # 'fdm' backend: max compensated iterative-refinement rounds after
-    # the direct solve (each ~12 MXU transform passes; early exit on
-    # err < eps_it). One round reaches ~1e-11 err units at nx=20-255 on
-    # v5e (HIGHEST-precision transforms); the budget only bounds
-    # pathological states.
+    # the direct solve (each ~12 dense transform passes; early exit on
+    # err < eps_it). Rounds per step are reported as stats.iters; the
+    # budget only bounds pathological states.
     fdm_refine: int = 8
     # Hydrostatic pressure split: the solver state stores
     # p' = Pr - P_static(z) with P_static the exact linear hydrostatic
@@ -138,37 +137,15 @@ class NumericsConfig:
     # is still far cheaper than burning the full budget at the floor).
     # None = auto: on when pressure_split is active and dtype is float32.
     extended_precision: Optional[bool] = None
-    # Accuracy phase of the hybrid Pallas Poisson solve, run after the
-    # plain float32 phase stalls at its noise floor:
-    #   'defect'   — restarted defect correction: evaluate the residual
-    #                r0 ONCE with compensated arithmetic (error
-    #                ~eps*|r0| instead of eps*|rhs|; kernels/poisson.py
-    #                compensated_residual), then solve lap(delta) = -r0
-    #                with the PLAIN kernel — its residual scale is |r0|,
-    #                so float32 genuinely reaches eps_it at ~half the
-    #                per-iteration cost of the extended pair.
-    #   'extended' — double-single continuation (the extended_precision
-    #                iterate as the second phase).
-    #   'none'     — single plain phase only.
-    # None = auto: on the Pallas path, 'defect' when the hydrostatic
-    # split is active (its small-range iterate is where the plain-f32
-    # correction solve is validated) and 'extended' otherwise (the
-    # no-split multi variant's correction solve floors above eps_it —
-    # measured ~1.5e-3 at nx=63 on v5e, vs 5.3e-4 for the pair); on the
-    # jnp path always 'extended' (runs the pair from the start and
-    # reproduces the Float64 reference's iteration counts); 'none' when
-    # extended_precision is off.
+    # Accuracy phase of the folded float32 Poisson solve:
+    #   'extended' — the (hi, lo) pair iterate from the first sweep,
+    #                then a defect-correction finisher: the residual r0
+    #                is evaluated ONCE with compensated arithmetic and
+    #                lap(delta) = -r0 is solved with the plain loop
+    #                (models/chorin._poisson_solve_jnp_folded).
+    #   'none'     — the plain iterate only.
+    # None = auto: 'extended' when extended_precision is on, else 'none'.
     accuracy: Optional[str] = None
-    # Carry the velocity/tracer state between steps in the fused chain's
-    # flat (NXP, W) layout (kernels/fused_step.CommonLayout) instead of
-    # the canonical 3D arrays: kills the per-step 3D<->flat relayouts
-    # (~0.5-2 ms per field at the 255 grid; the kernels themselves
-    # already chain flat operands, models/chorin._step_chained).
-    # Opt-in: the flat fields are converted back to canonical 3D at
-    # every I/O boundary (checkpoint, gather, viz, .mat), and the flag
-    # is ignored (with a warning) when the fused chain is unavailable
-    # (compat, f64, wide-beyond-tiling grids, distributed meshes).
-    flat_state: bool = False
     # Poisson stall exit: stop iterating when the residual improved by
     # less than stall_ratio**stall_checks over the last `stall_checks`
     # residual checks — the iterate has converged to its noise floor and
@@ -222,7 +199,8 @@ class ParallelConfig:
 
     The reference decomposes via ImplicitGlobalGrid/MPI
     (NavierStokes3D_multi_gpu.jl:325); here the analog is a
-    jax.sharding.Mesh with axes ('x','y','z') and XLA/ICI collectives.
+    jax.sharding.Mesh with axes ('x','y','z') and XLA collectives (NCCL
+    on GPUs).
     """
 
     mesh_shape: Tuple[int, int, int] = (1, 1, 1)
@@ -245,9 +223,6 @@ class SimConfig:
     # nx (grid.py), so multi-rank compat trajectories match the reference's
     # 1-rank run, not its n-rank runs.
     compat: bool = False
-    # Fused Pallas TPU kernel for the Poisson hot loop: None = auto
-    # (enabled on TPU backends for float32), True/False = force.
-    use_pallas: Optional[bool] = None
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

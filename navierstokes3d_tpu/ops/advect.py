@@ -13,8 +13,9 @@ never advected (gpu.jl:321-326) — the golden regression values encode this.
 compat=False advects Vz properly.
 
 Two backends: 'gather' (8 XLA gathers per field — the literal semantics)
-and 'selectshift' (bounded-window select-weighted stencil, ~13x faster on
-TPU v5e; see _backtrack_selectshift).
+and 'selectshift' (bounded-window select-weighted stencil of static
+shifted slices; see _backtrack_selectshift). The solver defaults to
+the gather, measured faster on the GPU (PERF.md).
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ def _backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz,
                            count_box=None):
     """Gather-free backtrack!: the trilinear corners lie within a bounded
     (2k+2)^3 neighborhood, so the interpolation becomes a select-weighted
-    stencil of static shifted slices — TPU-friendly (the XLA gather path
-    costs ~13x more on v5e). Matches _backtrack to rounding whenever
+    stencil of static shifted slices (no gather). Matches _backtrack to
+    rounding whenever
     |dt v / h| <= k. `starts` are the 1-based LOCAL region starts per axis.
 
     origin/gshape: as in _backtrack — departure indices clamp at GLOBAL
@@ -153,10 +154,7 @@ def _backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz,
     # slice origin of region cell 0 in the padded array along each axis
     bx, by, bz = P + sx - 1, P + sy - 1, P + sz - 1
     # Term order is (p, q, o) — y, then z, then x innermost — with the
-    # term evaluated as (wx * (wy*wz)) * sample. The Pallas kernel
-    # (kernels/advect.py) hoists one cyclic lane roll per (p, q) out of
-    # its x-offset loop, so this order lets it match the jnp accumulation
-    # BIT-identically while keeping a single rolled slab live in VMEM.
+    # term evaluated as (wx * (wy*wz)) * sample.
     wxs = [(jnp.where(ox1 == o, one - tx, zero)
             + jnp.where(ox2 == o, tx, zero))
            for o in range(-P, k + 1)]
@@ -173,8 +171,8 @@ def _backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz,
                         bz + q:bz + q + rs[2]]
                 acc = acc + (wxs[io] * wyz) * sl
         # split the (2k+2)^3-term accumulation into one fused kernel per
-        # y-offset: the fully-fused form exceeds XLA's 16MB scoped-VMEM
-        # budget at 255-class grids
+        # y-offset: one fusion over all (2k+2)^3 terms grows without
+        # bound in k
         acc = jax.lax.optimization_barrier(acc)
     return acc, n_clamped
 
@@ -188,8 +186,8 @@ def advect(vx, vy, vz, c, dt, dx, dy, dz, *, compat: bool,
     Inputs are the post-BC fields of this step; they serve as both the *_o
     snapshots (reference copies at gpu.jl:141) and the write targets.
     method: 'gather' (exact reference semantics, XLA gather) or
-    'selectshift' (bounded-window stencil, ~13x faster on TPU, displacement
-    clamped to SELECTSHIFT_K cells).
+    'selectshift' (bounded-window stencil, displacement clamped to k
+    cells).
     with_stats=True additionally returns the number of points whose
     displacement hit the select-shift clamp (always 0 for 'gather').
     k: select-shift displacement window in cells ((2k+2)^3 accumulation

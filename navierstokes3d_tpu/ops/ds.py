@@ -2,14 +2,13 @@
 
 Error-free transformations used by the f32 accuracy machinery: the
 extended Poisson iterate, the compensated residual evaluations, and the
-RHS pair. All run in pure float32 (no f64 ops), so they work identically
-on TPU — where float64 is unavailable — and on the CPU test platform.
+RHS pair. All run in pure float32 (no f64 ops).
 
-References: Knuth two_sum; Dekker/Veltkamp product splitting (the same
-scheme as the in-kernel compensated residual, kernels/poisson.py:712).
+References: Knuth two_sum; Dekker/Veltkamp product splitting.
 The reference solves everything in Float64 (NavierStokes3D_gpu.jl) and
-needs none of this; these transformations are what lets the f32 TPU
-solve meet the reference's Float64-evaluated convergence criterion.
+needs none of this; these transformations are what lets a float32 solve
+meet the reference's Float64-evaluated convergence criterion. Whether a
+float64 residual on the GPU can replace them is ROADMAP design item 2.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ runs inside one shard_map over the 3D device mesh, with owned-face
 staggered velocity storage and hand-scheduled ppermute halo exchanges
 for every stage.
 
-This is the TPU-native analog of the reference's per-step communication
+This is the analog of the reference's per-step communication
 schedule (NavierStokes3D_multi_gpu.jl:446-477):
 
   reference                      here
@@ -15,8 +15,8 @@ schedule (NavierStokes3D_multi_gpu.jl:446-477):
                                   no exchange needed)
   update_halo!(∇V)          :455  ∇V is computed locally from the (0,1)
                                   staggered-face halo — one face ppermute
-  Pr halo in the loop       :462  parallel/halo.py solve (2 ppermutes/iter
-                                  or the per-shard Pallas kernel)
+  Pr halo in the loop       :462  parallel/halo.py solve (6 face
+                                  ppermutes/iter)
   update_halo!(Vx,Vy,Vz)    :477  velocity k=advect_k+1 halo BEFORE advect
                                   (covers the select-shift footprint + the
                                   trilinear corner)
@@ -45,14 +45,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..ops import physics as ph
 from ..ops.advect import advect
-from ..state import FlowState, StepStats
+from ..state import FlowState, StepStats, pytree_dataclass
 from .halo import (AXES, _device_pos, _shift, build_poisson_shard_map,
                    halo_pad, halo_pad_asym)
 
@@ -64,7 +63,7 @@ from .halo import (AXES, _device_pos, _shift, build_poisson_shard_map,
 # only for |dt v / h| <= k).
 
 
-@struct.dataclass
+@pytree_dataclass
 class DistState:
     """Sharded flow state in owned-face layout (see module docstring)."""
     pr: jax.Array       # (nx, ny, nz) blocks, P('x','y','z')
@@ -136,13 +135,12 @@ def stag_pad_local(vo, vh, axis, k, blocks):
     return jnp.where(is_edge, with_plane, p)
 
 
-def build_fullstep(solver, mesh: Mesh, use_pallas: bool | None = None):
+def build_fullstep(solver, mesh: Mesh):
     """Build the jitted full-step function over `mesh` for `solver`.
 
     Returns step(dist: DistState) -> (DistState, StepStats), jitted with
     donated input. The Poisson stage reuses the distributed solver of
-    parallel/halo.py (jnp ppermute-halo loop, or the per-shard Pallas
-    kernel on x-only meshes); every other stage exchanges halos explicitly
+    parallel/halo.py (ppermute-halo loop); every other stage exchanges halos explicitly
     as described in the module docstring.
     """
     cfg, grid = solver.cfg, solver.grid
@@ -163,16 +161,10 @@ def build_fullstep(solver, mesh: Mesh, use_pallas: bool | None = None):
         raise ValueError(
             f"full-step shard_map needs local blocks >= {K + 1} cells per "
             f"axis (advection halo depth); got {(bx, by, bz)}")
-    if use_pallas is None:
-        use_pallas = (solver._pallas is not None and npy == 1 and npz == 1
-                      and cfg.parallel.halo == 1)
-    interpret = jax.default_backend() in ("cpu", "gpu")
     poisson_local = build_poisson_shard_map(
         mesh, grid, phys, cfg.numerics.eps_it, variant, dtype,
         halo_width=cfg.parallel.halo, pressure_split=solver.pressure_split,
-        stall=solver._stall, use_pallas=use_pallas,
-        extended=solver.extended and use_pallas, interpret=interpret,
-        wrap=False)
+        stall=solver._stall, wrap=False)
 
     method = solver.advect_method
     masks = solver.masks

@@ -2,7 +2,7 @@
 
 This is the hand-scheduled counterpart of the reference's communication
 layer: ImplicitGlobalGrid's `update_halo!` becomes per-axis
-`lax.ppermute` face shifts over the ICI mesh, and `MPI.Allreduce(MAX)`
+`lax.ppermute` face shifts over the device mesh (NCCL on GPUs), and `MPI.Allreduce(MAX)`
 (max_g, NavierStokes3D_multi_gpu.jl:21) becomes an in-jit `lax.pmax` —
 zero host round-trips for the entire pseudo-transient solve
 (the reference syncs to host at every residual check, gpu.jl:132).
@@ -23,7 +23,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ptloop import pt_loop, pt_loop_fused
+from ..ptloop import pt_loop_fused
 
 AXES = ("x", "y", "z")
 
@@ -151,10 +151,7 @@ def _bc_pr_local_padded(pr, variant: str, xlo_plane, xhi_plane, m: int,
 def build_poisson_shard_map(mesh: Mesh, grid, phys, eps_it: float,
                             variant: str, dtype, halo_width: int = 1,
                             pressure_split: bool = False,
-                            stall=None, use_pallas: bool = False,
-                            extended: bool = False,
-                            interpret: bool = False,
-                            wrap: bool = True):
+                            stall=None, wrap: bool = True):
     """Distributed pseudo-transient Poisson solve: the ENTIRE chunked
     while_loop runs inside one shard_map — per iteration: 6 face
     ppermutes (Pr halo) + local fused stencil + position-guarded BCs;
@@ -172,14 +169,7 @@ def build_poisson_shard_map(mesh: Mesh, grid, phys, eps_it: float,
     pressure_split: the fields are p' = Pr - P_static(z) (gpu variant;
     NumericsConfig.pressure_split) — x Dirichlet planes become constants
     and bc_z! gains affine offsets. stall: (ratio, checks) plateau exit
-    (ptloop.pt_loop) or None.
-
-    use_pallas: run the fused Pallas kernel PER SHARD inside the loop
-    (kernels/poisson.py local_rows mode) — requires an x-only mesh
-    (px,1,1) with halo_width 1; each iteration exchanges just the two
-    neighbor face rows via ppermute and the kernel applies the globally
-    position-guarded BCs in-kernel. extended adds the double-single lo
-    channel (two more row exchanges).
+    (ptloop.pt_loop_fused) or None.
 
     Returns solve(pr, dprdtau, rhs3d) -> (pr, dprdtau, iters, err, hist)
     operating on globally-sharded arrays.
@@ -242,15 +232,6 @@ def build_poisson_shard_map(mesh: Mesh, grid, phys, eps_it: float,
                 + (pad[1:-1, 2:, 1:-1] - 2 * c + pad[1:-1, :-2, 1:-1]) / dy / dy
                 + (pad[1:-1, 1:-1, 2:] - 2 * c + pad[1:-1, 1:-1, :-2]) / dz / dz)
 
-    def loop_body_local(pr, dpr, rhs, mask, xlo, xhi):
-        pad = halo_pad(pr)
-        resid = lap_of(pad) - rhs
-        dpr = jnp.where(mask, dpr * (1.0 - damp) + dtau * resid,
-                        jnp.zeros_like(dpr))
-        pr = pr + dtau * dpr
-        pr = _bc_pr_local(pr, variant, xlo, xhi, z_lo_add, z_hi_add)
-        return pr, dpr
-
     def run_batch(pr, dpr, rhs, m, prof_pad):
         """m iterations on m-deep halo-padded blocks: one exchange of
         Pr/dPrdτ/rhs, then m local width-1 sweeps whose halo validity
@@ -290,108 +271,6 @@ def build_poisson_shard_map(mesh: Mesh, grid, phys, eps_it: float,
         sl = slice(m, -m)
         return prp[sl, sl, sl], dpp[sl, sl, sl], e
 
-    def residual_local(pr, rhs, mask):
-        pad = halo_pad(pr)
-        rp = lap_of(pad) - rhs
-        local_max = jnp.max(jnp.where(mask, jnp.abs(rp), 0.0))
-        return lax.pmax(lax.pmax(lax.pmax(local_max, "x"), "y"), "z")
-
-    def lap_of_ds(pad):
-        """Difference-first lap (see ops/stencil.laplacian_inner_ds):
-        needed wherever the extended pair's extra bits must survive."""
-        c = pad[1:-1, 1:-1, 1:-1]
-        return (((pad[2:, 1:-1, 1:-1] - c) + (pad[:-2, 1:-1, 1:-1] - c))
-                / dx / dx
-                + ((pad[1:-1, 2:, 1:-1] - c) + (pad[1:-1, :-2, 1:-1] - c))
-                / dy / dy
-                + ((pad[1:-1, 1:-1, 2:] - c) + (pad[1:-1, 1:-1, :-2] - c))
-                / dz / dz)
-
-    if use_pallas:
-        # fused per-shard Pallas kernel (x-only decomposition): the entire
-        # iteration — lap, damped update, position-guarded BCs — is one
-        # kernel invocation per shard; communication is exactly two (four
-        # with the extended lo channel) (1, W) neighbor face-row
-        # ppermutes. The kernel's BC guards key on global row indices via
-        # x_off, so this is the reference's rank-guarded set_bc_Pr!
-        # (multi_gpu.jl:175-184) fused into the compute kernel.
-        if npy != 1 or npz != 1:
-            raise ValueError(
-                "shard_map Pallas composition requires an x-only mesh "
-                f"(px,1,1); got {(npx, npy, npz)}")
-        if k != 1:
-            raise ValueError("shard_map Pallas composition uses in-kernel "
-                             "BCs per iteration; halo_width must be 1")
-        from ..kernels.poisson import build_poisson_iter, poisson_bc_spec
-        bcspec = poisson_bc_spec(variant, grid, phys, pressure_split)
-        p_iter, p_pack, p_unpack = build_poisson_iter(
-            nx, ny, nz, dx, dy, dz, dtau, damp, bcspec, dtype=dtype,
-            interpret=interpret, mode="blocked", extended=extended,
-            local_rows=bx)
-
-        def solve_local_pallas(pr, dpr, rhs):
-            mask = local_interior_mask(pr.shape)
-            x_off = (lax.axis_index("x") * bx).astype(jnp.int32
-                                                      ).reshape(1, 1)
-            packed = p_pack(pr, dpr, rhs)
-
-            def face_rows(flat):
-                """(lo_halo operand, flat with the +x neighbor's face
-                written into ghost row bx — the kernel reads it as the +1
-                stencil neighbor of owned row bx-1). Zeros at the open
-                global edges only ever feed BC-overwritten/masked rows."""
-                from_left = _shift(flat[bx - 1:bx, :], "x", +1)
-                from_right = _shift(flat[0:1, :], "x", -1)
-                return from_left, flat.at[bx:bx + 1, :].set(from_right)
-
-            pall = lambda e: lax.pmax(lax.pmax(lax.pmax(e, "x"), "y"), "z")
-            # flat iteration-level loop on the kernel-emitted residual
-            # (ptloop.pt_loop_fused); the pmax keeps the while condition
-            # replicated across the mesh.
-            if extended:
-                hi0, lo0, dpf0, rhf = packed
-                carry0 = (hi0, lo0, dpf0)
-
-                def step_fn(c, it):
-                    hi, lo, dpf = c
-                    h_lo, hi = face_rows(hi)
-                    l_lo, lo = face_rows(lo)
-                    hi, lo, dpf, ec = p_iter(hi, lo, dpf, rhf,
-                                             h_lo, l_lo, x_off,
-                                             (it + 1) % nchk == 0)
-                    return ((hi, lo, dpf),
-                            pall(jnp.max(ec)) * err_scale, jnp.int32(1))
-            else:
-                hi0, dpf0, rhf = packed
-                carry0 = (hi0, dpf0)
-
-                def step_fn(c, it):
-                    hi, dpf = c
-                    h_lo, hi = face_rows(hi)
-                    hi, dpf, ec = p_iter(hi, dpf, rhf, h_lo, x_off,
-                                         (it + 1) % nchk == 0)
-                    return ((hi, dpf),
-                            pall(jnp.max(ec)) * err_scale, jnp.int32(1))
-
-            carry, iters, err, hist = pt_loop_fused(
-                step_fn, carry0, 0, niter, nchk, nchunks, eps_it, dtype,
-                stall=stall)
-            if extended:
-                pr3, _, dpr3 = p_unpack(*carry)
-            else:
-                pr3, dpr3 = p_unpack(*carry)
-            return pr3, dpr3, iters, err, hist
-
-        if not wrap:
-            return solve_local_pallas
-        spec = P(*AXES)
-        rep = P()
-        return shard_map(
-            solve_local_pallas, mesh=mesh,
-            in_specs=(spec, spec, spec),
-            out_specs=(spec, spec, rep, rep, rep),
-            check_vma=False)
-
     # kmax-padded global hydrostatic profile (edge-replicated; edge pads
     # are never consumed)
     prof_padded = np.pad(prof_full, k, mode="edge") if k > 1 else prof_full
@@ -410,9 +289,8 @@ def build_poisson_shard_map(mesh: Mesh, grid, phys, eps_it: float,
         pall = lambda e: lax.pmax(lax.pmax(lax.pmax(e, "x"), "y"), "z")
 
         # flat iteration-level loop on the in-body residual
-        # (ptloop.pt_loop_fused: the chunked nesting costs ~2x per
-        # iteration on TPU); the all-reduced err keeps the while condition
-        # replicated across the mesh.
+        # (ptloop.pt_loop_fused); the all-reduced err keeps the while
+        # condition replicated across the mesh.
         if k == 1:
             def step_fn(c, it):
                 pr, dpr = c

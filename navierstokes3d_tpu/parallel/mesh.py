@@ -2,15 +2,19 @@
 
 The reference decomposes the grid over MPI ranks via ImplicitGlobalGrid
 (init_global_grid, NavierStokes3D_multi_gpu.jl:325) with explicit halo
-exchanges. The TPU-native analog used here has two tiers:
+exchanges. The analog used here has two tiers:
 
   1. Global-view path (this module): fields are global jax.Arrays laid out
      over a 3D jax.sharding.Mesh with axes ('x','y','z'); the solver's
      slicing stencils compile under jit and the XLA SPMD partitioner
      inserts the neighbor collective-permutes (the halo exchanges) and
-     all-reduces (the residual max) over ICI automatically.
-  2. Explicit shard_map path (parallel/halo.py): hand-scheduled halo
-     exchange + fused Pallas block kernels for peak performance.
+     all-reduces (the residual max) automatically.
+  2. Explicit shard_map paths (parallel/halo.py, parallel/fullstep.py):
+     hand-scheduled ppermute halo exchanges and in-loop pmax reductions.
+
+XLA hands the collectives to NCCL on GPUs. The cards of one host are
+joined all to all by NVLink, so the mesh shape follows the algorithm
+alone (no torus to match).
 
 Both consume the same FlowState; a state can be resharded between them.
 """
@@ -34,13 +38,13 @@ def choose_mesh_shape(n_devices: int, nx: Optional[int] = None,
     """Factor n_devices into a mesh shape (px,py,pz).
 
     When the grid's streamwise extent nx is known, prefer the x-only
-    shape (n,1,1): it is the ONLY decomposition on which the per-shard
-    fused Pallas Poisson kernel composes (parallel/halo.py:318 — the
-    fast path, ~2.2x over the jnp loop at the 255 grid), and the halo
-    traffic is two (1,W) face rows per iteration. Eligibility: nx must
-    split evenly (shard_map requires equal blocks) with slabs of at
-    least min_bx rows (thin slabs starve the kernel's B=8 x-blocking
-    and leave advection halos without interior backing).
+    shape (n,1,1): every exchange is then a contiguous (ny, nz) face
+    plane between two neighbours, and run.py routes it to the explicit
+    full-step schedule. Eligibility: nx must split evenly (shard_map
+    requires equal blocks) with slabs of at least min_bx rows (thinner
+    slabs leave the advection halos without interior backing). Which
+    shape is fastest on four cards is not measured yet (ROADMAP design
+    item 6).
 
     Without nx (or when x-only slabs would be too thin) fall back to the
     near-cubic factorization that minimizes halo surface per device,
@@ -75,7 +79,7 @@ def make_mesh(shape: Optional[Tuple[int, int, int]] = None,
     return Mesh(dev_array, AXES)
 
 
-def state_shardings(mesh: Mesh) -> FlowState:
+def state_shardings(mesh: Mesh, shape_c=None) -> FlowState:
     """Sharding layout for the global-view path.
 
     Cell-centered fields shard over all three mesh axes. Staggered
@@ -85,12 +89,34 @@ def state_shardings(mesh: Mesh) -> FlowState:
     The full-step explicit-comm path (parallel/fullstep.py) stores
     velocities in owned-face layout (n faces per shard + a 2D hi-face
     plane) and shards all three axes, so its memory truly scales 1/N.
+
+    shape_c: the cell-centered grid shape (nx, ny, nz). JAX shards a
+    dimension only when the mesh axis divides it, so with shape_c given
+    a field stays replicated along every mesh axis that does not divide
+    its dimension (at 255x153x153 no axis of a 4-device mesh divides:
+    every field is then replicated, see unsharded_axes).
     """
-    cell = NamedSharding(mesh, P(*AXES))
-    vx = NamedSharding(mesh, P(None, "y", "z"))
-    vy = NamedSharding(mesh, P("x", None, "z"))
-    vz = NamedSharding(mesh, P("x", "y", None))
-    return FlowState(pr=cell, vx=vx, vy=vy, vz=vz, c=cell, dprdtau=cell)
+    nx, ny, nz = shape_c if shape_c is not None else (None,) * 3
+
+    def spec(names, shape):
+        return NamedSharding(mesh, P(*(
+            n if (n is None or shape[d] is None
+                  or shape[d] % mesh.shape[n] == 0) else None
+            for d, n in enumerate(names))))
+
+    cell = spec(AXES, (nx, ny, nz))
+    plus1 = lambda n: None if n is None else n + 1
+    return FlowState(pr=cell, c=cell, dprdtau=cell,
+                     vx=spec((None, "y", "z"), (plus1(nx), ny, nz)),
+                     vy=spec(("x", None, "z"), (nx, plus1(ny), nz)),
+                     vz=spec(("x", "y", None), (nx, ny, plus1(nz))))
+
+
+def unsharded_axes(mesh: Mesh, shape_c) -> Tuple[str, ...]:
+    """Mesh axes of size > 1 that do not divide the cell-centered grid
+    dimension they would split (those fields stay replicated there)."""
+    return tuple(a for a, n in zip(AXES, shape_c)
+                 if mesh.shape[a] > 1 and n % mesh.shape[a])
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -99,5 +125,5 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 def shard_state(state: FlowState, mesh: Mesh) -> FlowState:
     """Lay an (unsharded or differently-sharded) state out over the mesh."""
-    sh = state_shardings(mesh)
+    sh = state_shardings(mesh, state.pr.shape)
     return jax.tree.map(jax.device_put, state, sh)

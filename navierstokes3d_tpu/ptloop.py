@@ -27,8 +27,7 @@ from jax import lax
 def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int,
                   nchk: int, nchunks: int, eps_it: float, dtype,
                   stall: Optional[Tuple[float, int]] = None,
-                  err0=None, rem: int = 0, tail_fn: Callable = None,
-                  seed0: bool = False):
+                  err0=None, rem: int = 0, tail_fn: Callable = None):
     """Flat single-level while_loop over ITERATIONS, for backends whose
     iteration emits its own residual max.
 
@@ -40,11 +39,12 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int,
     — so convergence checks cost nothing). In a sharded context step_fn
     must all-reduce err_raw (pmax) so the loop condition is replicated.
 
-    Why flat: nesting a fori_loop of pallas_call/fusion bodies inside an
-    outer chunk loop makes XLA:TPU insert per-iteration HBM copies around
-    the body (measured 161.6 vs 83.8 us/iter at 255x153x153 f32 on v5e);
-    a single-level while with only scalar/small carries alongside the
-    field carries runs at flat-fori speed (84.6 us/iter measured).
+    Why flat: one sweep per while-loop body, with only scalar/small
+    carries beside the field carries, keeps the convergence check free
+    (the sweep already computes the residual) and avoids a nested
+    chunk loop whose carries the compiler may copy per iteration. On a
+    GPU each body is a few loop fusions, and the loop predicate is
+    evaluated every sweep (PERF.md records what that costs).
 
     Convergence semantics (vs pt_loop): the k-th check value is the
     residual of the state entering iteration k*nchk — one iteration
@@ -59,15 +59,7 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int,
     protocol's exact first iteration). err0: initial err (default: a
     sentinel that cannot trigger the eps exit) — pass the caller's
     already-known residual to make the loop a no-op when it is below
-    eps_it, instead of wrapping the loop in lax.cond: conditional
-    control flow around a pallas-call loop re-triggers the per-iteration
-    copy penalty this loop exists to avoid.
-
-    seed0=True: err0 IS the k=0 convergence check (the caller ran the
-    whole first chunk outside the loop, e.g. a resident-chunk kernel
-    pre-call with nit == nchk) — record it in hist[0] and push it into the stall
-    window, so the check sequence the loop sees is identical to a loop
-    whose first body produced that value. Requires it0 == nchk and err0.
+    eps_it, instead of wrapping the loop in lax.cond around it.
     Returns (carry, iters, err, hist).
     """
     big = jnp.asarray(1e30, dtype)
@@ -105,23 +97,15 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int,
 
     hist0 = jnp.full((nhist,), jnp.nan, dtype)
     errbuf0 = jnp.full((window + 1,), big, dtype)
-    # reshape(()) tolerates (1,1)-shaped errs (the resident kernel's SMEM
-    # err_out) — e0[None] below needs a scalar
     e0 = big if err0 is None else jnp.asarray(err0, dtype).reshape(())
-    if seed0:
-        if err0 is None or it0 != nchk:
-            raise ValueError("seed0 requires err0 and it0 == nchk")
-        hist0 = hist0.at[0].set(e0.astype(hist0.dtype))
-        errbuf0 = jnp.concatenate([errbuf0[1:], e0[None]])
     carry, it, err, hist, errbuf = lax.while_loop(
         cond, body, (carry, jnp.int32(it0), e0, hist0, errbuf0))
     if rem > 0 and tail_fn is not None:
         # the reference's trailing partial chunk, hoisted OUT of the flat
         # loop (so `niter` can stay a multiple of the body advance):
         # runs only on budget exhaustion without convergence or stall —
-        # the same do_tail predicate as pt_loop. The lax.cond here wraps
-        # a post-loop region, not the hot loop body, so it does not
-        # re-trigger the per-iteration copy penalty the flat loop avoids.
+        # the same do_tail predicate as pt_loop. The lax.cond wraps a
+        # post-loop region, not the hot loop body.
         do_tail = (it >= niter) & (err >= eps_it) & jnp.isfinite(err)
         if stall_on:
             do_tail = do_tail & jnp.logical_not(stalled_of(err, errbuf))

@@ -13,16 +13,25 @@ and let the pressure update fuse into a single full-array AXPY.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .grid import Grid
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree whose fields are all
+    children (a None field is an empty subtree), with `.replace(**kw)`."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    names = [f.name for f in dataclasses.fields(cls)]
+    return jax.tree_util.register_dataclass(cls, data_fields=names,
+                                            meta_fields=[])
+
+
+@pytree_dataclass
 class FlowState:
     pr: jax.Array        # pressure, (nx, ny, nz)
     vx: jax.Array        # (nx+1, ny, nz)
@@ -41,7 +50,7 @@ class FlowState:
     pr_lo: jax.Array | None = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class StepStats:
     """Per-step observability record.
 
@@ -61,9 +70,9 @@ class StepStats:
     err_hist: jax.Array   # (niter // nchk,)
     advect_clamped: jax.Array | None = None  # scalar int32 (None inside
     #                                           poisson-only solves)
-    iters_ext: jax.Array | None = None  # iterations run by the extended
-    #   (double-single) kernel in the hybrid Pallas solve; plain-kernel
-    #   iterations = iters - iters_ext. None outside that path.
+    iters_ext: jax.Array | None = None  # iterations of the folded f32
+    #   solve's defect-correction finisher (plain sweeps); the (hi, lo)
+    #   pair sweeps are iters - iters_ext. None outside that path.
     pr_lo: jax.Array | None = None  # INTERNAL channel: the Poisson
     #   backends return the stored-pair low word here; _step_impl pops
     #   it into FlowState.pr_lo (never visible to step callers).

@@ -16,18 +16,8 @@ from typing import Optional
 import jax
 import numpy as np
 
+from .peaks import peak_hbm_gbps
 from .timers import RunTimer, poisson_roofline_iters_per_sec
-
-_HBM_GBPS = {"v5 lite": 819.0, "v5e": 819.0, "v4": 1228.0, "v5p": 2765.0,
-             "v6e": 1640.0}
-
-
-def device_hbm_gbps(default: float = 819.0) -> float:
-    kind = jax.devices()[0].device_kind.lower()
-    for k, v in _HBM_GBPS.items():
-        if k in kind:
-            return v
-    return default
 
 
 @contextlib.contextmanager
@@ -42,9 +32,12 @@ def trace(log_dir: str = "/tmp/ns3d_trace"):
 
 
 def profile_steps(solver, state, n_steps: int = 3,
-                  trace_dir: Optional[str] = None) -> dict:
+                  trace_dir: Optional[str] = None,
+                  hbm_gbps: Optional[float] = None) -> dict:
     """Run n_steps jitted solver steps (assumes the step is already
-    compiled/warm) and return timing + roofline summary."""
+    compiled/warm) and return timing + roofline summary. hbm_gbps
+    defaults to the device's published peak (utils/peaks.py; an
+    unknown device raises)."""
     timer = RunTimer()
     ctx = trace(trace_dir) if trace_dir else contextlib.nullcontext()
     with ctx:
@@ -57,7 +50,8 @@ def profile_steps(solver, state, n_steps: int = 3,
     summary = timer.summary(skip_first=0)
     itemsize = np.dtype(solver.dtype).itemsize
     roof = poisson_roofline_iters_per_sec(
-        g.nx * g.ny * g.nz, itemsize, device_hbm_gbps())
+        g.nx * g.ny * g.nz, itemsize,
+        peak_hbm_gbps() if hbm_gbps is None else hbm_gbps)
     summary["roofline_iters_per_sec"] = roof
     summary["roofline_fraction"] = (
         summary.get("poisson_iters_per_sec", 0.0) / roof)

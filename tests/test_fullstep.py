@@ -118,31 +118,30 @@ def test_fullstep_hlo_has_no_all_gather():
     assert "all-gather" not in hlo, "volumetric gather in full-step HLO"
 
 
-def test_fullstep_pallas_matches_shard_map_path():
-    """The flagship distributed configuration: the FULL step under one
-    shard_map with the per-shard fused Pallas Poisson kernel on an x-only
-    mesh (VERDICT r2 #4). Must match the standalone shard_map path (same
-    per-shard kernel, rest of the step global-view) iteration-for-
-    iteration, and its HLO must not gather any volumetric field.
+def test_fullstep_x_only_matches_shard_map_path():
+    """The full step under one shard_map on an x-only mesh (the shape
+    --mesh auto prefers when nx splits evenly) matches the standalone
+    shard_map Poisson path (rest of the step global-view) iteration for
+    iteration, and its HLO gathers no volumetric field.
 
     Reference analog: the multi script's fully-interleaved step,
     NavierStokes3D_multi_gpu.jl:446-477."""
     import dataclasses
     from navierstokes3d_tpu.parallel.mesh import shard_state
-    cfg = ns.preset_multi(nx=40, nt=1, compat=False, dtype="float32",
-                          use_pallas=True)
+    cfg = ns.preset_multi(nx=40, nt=1, compat=False, dtype="float32")
     cfg = cfg.replace(numerics=dataclasses.replace(
         cfg.numerics, niter_scale=1, stall_exit=False))
     solver = ns.ChorinSolver(cfg)
-    assert solver._pallas is not None, "Pallas kernel must build (interpret)"
+    solver.advect_method = "selectshift"  # gather all-gathers by design
     mesh = make_mesh((8, 1, 1))
 
-    step_fs = build_fullstep(solver, mesh, use_pallas=True)
+    step_fs = build_fullstep(solver, mesh)
     d = to_dist(_random_state(solver), mesh)
     d, stats_fs = step_fs(d)
 
     solver2 = ns.ChorinSolver(cfg)
-    step_sm = solver2.step_shard_map_jit(mesh, use_pallas=True)
+    solver2.advect_method = "selectshift"
+    step_sm = solver2.step_shard_map_jit(mesh)
     st = shard_state(_random_state(solver2), mesh)
     st, stats_sm = step_sm(st)
 
@@ -162,7 +161,7 @@ def test_fullstep_pallas_matches_shard_map_path():
     d2 = to_dist(solver.init_state(), mesh)
     hlo = step_fs.lower(d2).compile().as_text()
     assert "collective-permute" in hlo
-    assert "all-gather" not in hlo, "volumetric gather in fullstep+Pallas HLO"
+    assert "all-gather" not in hlo, "volumetric gather in fullstep HLO"
 
 
 def test_fullstep_selectshift_matches_gather_mode_sharded():

@@ -1,7 +1,6 @@
-"""Multi-process (DCN-analog) smoke test: 2 jax.distributed processes,
-4 virtual CPU devices each, one sharded step (launch/multihost_smoke.py —
-the testable core of launch/run_pod.sh, the analog of the reference's
-srun -n8 SLURM launch, scripts/runme3D.sh:18)."""
+"""Multi-process smoke test: 2 jax.distributed processes, 4 virtual CPU
+devices each, one sharded step (launch/multihost_smoke.py — the analog
+of the reference's srun -n8 SLURM launch, scripts/runme3D.sh:18)."""
 
 import os
 import socket

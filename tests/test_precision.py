@@ -105,45 +105,6 @@ def test_extended_f32_converges_like_f64():
         assert 0 <= i32 - i64 <= 2 * nchk, (iters, nchk)
 
 
-def test_extended_pallas_matches_folded():
-    """The hybrid Pallas solve (plain phase to its noise floor, extended
-    double-single continuation — interpret mode) and the extended folded
-    jnp backend solve the same problem: both exit converged below eps_it
-    with close fields, from identical smooth inputs. (Iteration counts
-    differ by construction: the hybrid's plain phase takes different-
-    precision steps.)"""
-    # nx=20 keeps dy == dx so the reference's dtau rule sits inside the PT
-    # stability bound (nx=16 has dy < dx = dtau-base -> divergent PT)
-    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32",
-                        use_pallas=True)
-    cfg = _num(cfg, accuracy="extended")
-    s = ns.ChorinSolver(cfg)
-    assert s._pallas is not None and s._pallas_ext is not None
-    g = s.grid
-    rng = np.random.default_rng(3)
-
-    def smooth(shape, scale):
-        a = rng.standard_normal(shape)
-        for ax in range(3):
-            a = 0.5 * a + 0.25 * (np.roll(a, 1, ax) + np.roll(a, -1, ax))
-        return jnp.asarray(a * scale, jnp.float32)
-
-    pr = smooth(g.shape_c, 200.0)
-    dpr = jnp.zeros(g.shape_c, jnp.float32)
-    divv = smooth(g.shape_c, 0.05)
-
-    p1, d1, s1 = s._poisson_solve_pallas(pr, dpr, divv)
-    p2, d2, s2 = s._poisson_solve_jnp_folded(pr, dpr, divv)
-    eps = cfg.numerics.eps_it
-    assert float(s1.err) < eps and float(s2.err) < eps
-    assert int(s1.iters) < g.niter and int(s2.iters) < g.niter
-    # both converged to the same tolerance: fields agree to the residual
-    # scale; a semantic bug (wrong BC/mask) gives O(1) divergence
-    scale = float(jnp.abs(p2).max())
-    np.testing.assert_allclose(np.asarray(p1) / scale,
-                               np.asarray(p2) / scale, rtol=0, atol=1e-3)
-
-
 def test_stall_exit_unit():
     """pt_loop's windowed plateau exit: exit when the residual improved
     by less than ratio**window over the last `window` checks; a steady
@@ -220,69 +181,52 @@ def test_split_io_reconstruction():
 
 
 def test_compensated_residual_matches_f64_oracle():
-    """kernels/poisson.py compensated_residual: with rhs constructed as
-    the f64 folded lap of a known field, the true residual is only the
-    f32 representation error of rhs (~eps*|rhs|) — a naive f32 evaluation
+    """ChorinSolver._comp_residual_fn: with rhs constructed as the f64
+    folded lap of a known field, the true residual is only the f32
+    representation error of rhs (~eps*|rhs|) — a naive f32 evaluation
     over-reports it several-fold, while the compensated evaluation must
     match the f64 oracle to ulp-level."""
-    from navierstokes3d_tpu.kernels.poisson import (PoissonBCSpec,
-                                                    build_poisson_iter)
-    nx, ny, nz = 24, 10, 10
-    dx = dy = dz = 0.004
+    s = ns.ChorinSolver(ns.preset_multi(nx=24, nt=1, compat=False,
+                                        dtype="float32"))
+    g = s.grid
+    nx, ny, nz = g.nx, g.ny, g.nz
     rng = np.random.default_rng(7)
-    bc = PoissonBCSpec(True, None, np.zeros(ny * nz))
-    it, pack, unpack = build_poisson_iter(
-        nx, ny, nz, dx, dy, dz, dtau=0.01, damp=0.9, bc=bc,
-        dtype=jnp.float32, interpret=True, mode="blocked", folded=True)
-    p = (rng.standard_normal((nx, ny, nz)) * 100).astype(np.float32)
+    p = (rng.standard_normal((nx, ny, nz)) * 3e4).astype(np.float32)
     p64 = p.astype(np.float64)
-    axm = np.ones((nx - 2, 1, 1)); axm[0, 0, 0] = 0.0
-    ayp = np.ones((1, ny - 2, 1)); ayp[0, -1, 0] = 0
-    aym = np.ones((1, ny - 2, 1)); aym[0, 0, 0] = 0
-    azp = np.ones((1, 1, nz - 2)); azp[0, 0, -1] = 0
-    azm = np.ones((1, 1, nz - 2)); azm[0, 0, 0] = 0
+    lap64 = s._folded_lap_fn()  # the multi variant's folded masks
 
-    def lap64(q):
-        qc = q[1:-1, 1:-1, 1:-1]
-        l = ((q[2:, 1:-1, 1:-1] - qc) + axm * (q[:-2, 1:-1, 1:-1] - qc)) \
-            / dx / dx
-        l += (ayp * (q[1:-1, 2:, 1:-1] - qc)
-              + aym * (q[1:-1, :-2, 1:-1] - qc)) / dy / dy
-        l += (azp * (q[1:-1, 1:-1, 2:] - qc)
-              + azm * (q[1:-1, 1:-1, :-2] - qc)) / dz / dz
-        return l
+    def lap_f64(q):
+        with jax.default_device(jax.devices("cpu")[0]):
+            return np.asarray(lap64(jnp.asarray(q, jnp.float64)))
 
-    rhs = np.zeros((nx, ny, nz), np.float32)
-    rhs[1:-1, 1:-1, 1:-1] = lap64(p64).astype(np.float32)
-    oracle = lap64(p64) - rhs[1:-1, 1:-1, 1:-1].astype(np.float64)
-    pp, _, rf = pack(jnp.asarray(p), jnp.zeros((nx, ny, nz), jnp.float32),
-                     jnp.asarray(rhs))
-    r0, emax = jax.jit(it.compensated_residual)(pp, rf)
-    got = np.asarray(jnp.reshape(r0[:nx, :ny * nz], (nx, ny, nz))
-                     )[1:-1, 1:-1, 1:-1]
+    rhs = lap_f64(p64).astype(np.float32)
+    oracle = lap_f64(p64) - rhs.astype(np.float64)
+    comp = jax.jit(s._comp_residual_fn())
+    zeros = jnp.zeros_like(jnp.asarray(p))
+    r0, emax = comp(jnp.asarray(p), zeros, jnp.asarray(rhs),
+                    jnp.zeros_like(jnp.asarray(rhs)))
     assert np.abs(rhs).max() > 1e7  # the large-dynamic-range regime
-    np.testing.assert_allclose(got, oracle, rtol=0,
+    np.testing.assert_allclose(np.asarray(r0), oracle, rtol=0,
                                atol=1e-5 * np.abs(oracle).max())
-    naive = float(jax.jit(it.residual_flat)(pp, rf))
+    lap32 = s._folded_lap_fn()
+    naive = float(jnp.max(jnp.abs(jax.jit(lap32)(jnp.asarray(p))
+                                  - jnp.asarray(rhs))))
     assert naive > 2 * np.abs(oracle).max()  # naive f32 over-reports
     assert abs(float(emax) - np.abs(oracle).max()) \
         < 1e-5 * np.abs(oracle).max()
 
 
 def test_defect_correction_converges_beyond_plain_floor():
-    """Default Pallas accuracy phase (restarted defect correction): with
-    eps_it below the plain-f32 noise floor the correction phase must run
-    and the HONEST (compensated) reported err must be met — validated
-    against an independent f64 residual of the returned field."""
-    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32",
-                        use_pallas=True)
-    # eps sits between the plain-f32 stall floor (~6e-4 here) and the
-    # returned-field representation floor (~1.3e-4: any single f32 field
-    # carries resid ~eps32*|p|*6/h^2 regardless of how it was computed)
+    """The folded f32 solve's defect-correction finisher: with eps_it
+    below what the (hi, lo) pair loop's plain-f32 observable can reach,
+    the finisher must run and the HONEST (compensated) reported err must
+    be met — validated against an independent f64 residual of the
+    returned (hi, lo) pair."""
+    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32")
     eps = 2e-4
     cfg = _num(cfg, eps_it=eps)
     s = ns.ChorinSolver(cfg)
-    assert s.acc_pallas == "defect" and s._pallas_ext is None
+    assert s.accuracy == "extended"
     g = s.grid
     rng = np.random.default_rng(3)
 
@@ -295,24 +239,25 @@ def test_defect_correction_converges_beyond_plain_floor():
     pr = smooth(g.shape_c, 200.0)
     dpr = jnp.zeros(g.shape_c, jnp.float32)
     divv = smooth(g.shape_c, 0.05)
-    p1, d1, st = s._poisson_solve_pallas(pr, dpr, divv)
+    p1, d1, st = jax.jit(s._poisson_solve_jnp_folded)(pr, dpr, divv)
     assert int(st.iters_ext) > 0, "correction phase must have run"
     assert float(st.err) < eps, float(st.err)
-    # independent f64 residual of the returned field
+    # independent f64 residual of the returned pair and of its hi word
     lap64 = s._folded_lap_fn()
     rho, dt = cfg.physics.rho, g.dt
-    p64 = jnp.asarray(np.asarray(p1, np.float64))
     rhs64 = ((rho / dt) * jnp.asarray(np.asarray(divv, np.float64))
              )[1:-1, 1:-1, 1:-1] \
         - jnp.asarray(s._z_hoist[1:-1], jnp.float64)[None, None, :]
-    rp = np.asarray(lap64(p64)) - np.asarray(rhs64)
-    true_err = np.abs(rp).max() * (g.ly * g.ly) / cfg.physics.psc
-    # the reported err is the ITERATE's residual (p1 (+) delta before the
-    # final f32 rounding); the returned single-f32 field re-adds its
-    # representation noise (~eps32*|p|*6/h^2, the floor for ANY f32
-    # storage) — the f64 oracle must still be within a small multiple of
-    # eps, far below the plain-phase stall floor (~6e-4 here)
-    assert true_err < 3 * eps, true_err
+
+    def true_err(p64):
+        rp = np.asarray(lap64(jnp.asarray(p64))) - np.asarray(rhs64)
+        return np.abs(rp).max() * (g.ly * g.ly) / cfg.physics.psc
+
+    pair = np.asarray(p1, np.float64) + np.asarray(st.pr_lo, np.float64)
+    assert true_err(pair) < eps, true_err(pair)
+    # the single f32 field re-adds its representation noise
+    # (~eps32*|p|*6/h^2): within a small multiple of eps
+    assert true_err(np.asarray(p1, np.float64)) < 3 * eps
 
 
 def _err_f64(s, pr, divv):
@@ -332,8 +277,7 @@ def test_stored_pair_meets_reference_criterion():
     stays below eps_it, while the single rounded field alone floors above
     it at 127-class grids (the representation noise the pair removes;
     docs/numerics.md "What still floors")."""
-    cfg = ns.preset_gpu(nx=127, nt=2, compat=False, dtype="float32",
-                        use_pallas=False)  # jnp folded extended backend
+    cfg = ns.preset_gpu(nx=127, nt=2, compat=False, dtype="float32")
     s = ns.ChorinSolver(cfg)
     eps = cfg.numerics.eps_it
     st = s.init_state()
@@ -352,39 +296,17 @@ def test_stored_pair_meets_reference_criterion():
     # the pair is what closes the gap
     assert err_single > eps, (err_pair, err_single)
     assert err_pair < 0.5 * err_single
-    # the pure-f32 compensated self-check (what bench.py runs on TPU,
-    # where f64 is unavailable) agrees with the f64 oracle
+    # the pure-f32 compensated self-check (what bench.py runs) agrees
+    # with the f64 oracle
     err_comp = float(s.stored_residual_err(st2, divv=divv))
     assert abs(err_comp - err_pair) < 0.2 * err_pair + 1e-6, (
         err_comp, err_pair)
 
 
-def test_stored_pair_pallas_defect_path():
-    """The hybrid Pallas solve's defect-correction exit packages the
-    converged iterate p1 (+) delta as an exact two_sum pair; the stored
-    pair's f64-evaluated residual matches the loop's exit err up to
-    evaluation noise (interpret mode, small grid)."""
-    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32",
-                        use_pallas=True)
-    s = ns.ChorinSolver(cfg)
-    assert s.acc_pallas == "defect"
-    st = s.init_state()
-    st, _ = s.step_jit(st)
-    divv = s.predictor_divv(st)
-    st2, stats = s.step_jit(st)
-    assert st2.pr_lo is not None
-    err_pair = _err_f64(s, np.asarray(st2.pr, np.float64)
-                        + np.asarray(st2.pr_lo, np.float64), divv)
-    eps = cfg.numerics.eps_it
-    assert err_pair < max(eps, 2.0 * float(stats.err)), (
-        err_pair, float(stats.err))
-
-
 def test_stored_pair_checkpoint_roundtrip(tmp_path):
     """pr_lo survives checkpoint save/load bit-for-bit."""
     from navierstokes3d_tpu.io import checkpoint
-    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32",
-                        use_pallas=True)
+    cfg = ns.preset_gpu(nx=20, nt=1, compat=False, dtype="float32")
     s = ns.ChorinSolver(cfg)
     st, _ = s.step_jit(s.init_state())
     assert st.pr_lo is not None

@@ -94,65 +94,6 @@ def test_tail_matches_in_loop_rem():
     np.testing.assert_array_equal(np.asarray(hist1), np.asarray(hist2))
 
 
-def test_seed0_matches_unseeded_loop():
-    """seed0=True (caller ran the whole first chunk outside the loop,
-    e.g. a resident-chunk pre-call with nit == nchk) must reproduce the
-    unseeded loop's (iters, err, hist) exactly — including when err0
-    arrives (1,1)-shaped like the resident kernel's SMEM err output."""
-    nchk, nchunks = 4, 10
-    rate = 0.9
-    x0 = jnp.asarray(1.0, DT)
-    c1, it1, err1, hist1 = pt_loop_fused(
-        geometric_step(rate), x0, 0, nchunks * nchk, nchk, nchunks,
-        eps_it=1e-3, dtype=DT, stall=(0.95, 3))
-    # caller-side first chunk: nchk iterations, emitted err is the value
-    # entering the last one (the fused-kernel definition)
-    carry_pre = x0 * rate ** nchk
-    err0_scalar = x0 * rate ** (nchk - 1)
-    for err0 in (jnp.asarray(err0_scalar, DT),
-                 jnp.full((1, 1), err0_scalar, DT)):
-        c2, it2, err2, hist2 = pt_loop_fused(
-            geometric_step(rate), carry_pre, nchk, nchunks * nchk, nchk,
-            nchunks, eps_it=1e-3, dtype=DT, stall=(0.95, 3),
-            err0=err0, seed0=True)
-        assert int(it1) == int(it2)
-        np.testing.assert_allclose(float(c1), float(c2), rtol=1e-6)
-        np.testing.assert_allclose(float(err1), float(err2), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(hist1), np.asarray(hist2),
-                                   rtol=1e-6)
-
-
-def test_seed0_stall_window_is_seeded():
-    """The seeded k=0 check participates in the stall window: a flat
-    residual exits at the same iteration seeded or not."""
-    nchk, nchunks = 2, 50
-    x0 = jnp.asarray(1.0, DT)
-
-    def flat_step(carry, it):
-        return carry, carry, jnp.int32(1)
-
-    c1, it1, err1, hist1 = pt_loop_fused(
-        flat_step, x0, 0, nchunks * nchk, nchk, nchunks,
-        eps_it=1e-8, dtype=DT, stall=(0.95, 3))
-    c2, it2, err2, hist2 = pt_loop_fused(
-        flat_step, x0, nchk, nchunks * nchk, nchk, nchunks,
-        eps_it=1e-8, dtype=DT, stall=(0.95, 3),
-        err0=x0, seed0=True)
-    assert int(it1) == int(it2)
-    assert float(err1) == float(err2)
-
-
-def test_seed0_requires_full_first_chunk():
-    import pytest
-    with pytest.raises(ValueError, match="seed0"):
-        pt_loop_fused(geometric_step(0.9), jnp.asarray(1.0, DT), 3,
-                      40, 4, 10, eps_it=1e-3, dtype=DT,
-                      err0=jnp.asarray(0.5, DT), seed0=True)
-    with pytest.raises(ValueError, match="seed0"):
-        pt_loop_fused(geometric_step(0.9), jnp.asarray(1.0, DT), 4,
-                      40, 4, 10, eps_it=1e-3, dtype=DT, seed0=True)
-
-
 def test_stall_exit_skips_tail():
     """A stalled run (flat residual) must exit early AND skip the tail
     (iterating at the noise floor buys nothing — same as pt_loop)."""

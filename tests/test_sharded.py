@@ -71,7 +71,7 @@ def test_three_steps_sharded_from_init():
     matching Poisson iteration counts while the trajectories agree.
 
     The uniform-inflow init puts semi-Lagrangian departure points exactly
-    on the backtrack formula's floor() discontinuity (docs/roadmap.md),
+    on the backtrack formula's floor() discontinuity (docs/numerics.md),
     where a 1-ulp cross-compilation difference between the single-device
     and SPMD-partitioned programs legitimately flips an O(field) jump —
     so per-step equality is asserted with a small tolerance and only
@@ -269,36 +269,6 @@ def test_halo_width_batching_matches_width1(halo_width):
                                    err_msg=name)
 
 
-def test_sharded_step_never_calls_pallas():
-    """pallas_call is opaque to the SPMD partitioner: a step traced over a
-    >1-device global-view mesh must dispatch to the jnp Poisson backends
-    even when the solver has a Pallas kernel built (ADVICE r1, medium)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    cfg = ns.preset_multi(nx=16, nt=1, compat=False)
-    cfg = cfg.replace(numerics=dataclasses.replace(
-        cfg.numerics, niter_scale=1))
-    solver = ns.ChorinSolver(cfg)
-
-    class _Boom:
-        def __iter__(self):
-            raise AssertionError("Pallas backend reached under a "
-                                 ">1-device mesh")
-    solver._pallas = _Boom()  # sentinel: any use raises
-
-    mesh = make_mesh(devices=jax.devices()[:8])
-    st = shard_state(_random_state(solver), mesh)
-    stt, stats = solver.step_sharded_jit(mesh)(st)  # must not touch Pallas
-    assert int(stats.iters) > 0
-
-    # on a 1-device mesh the Pallas dispatch IS taken (and here trips the
-    # sentinel at trace time), proving the guard keys on mesh size
-    mesh1 = make_mesh(shape=(1, 1, 1), devices=jax.devices()[:1])
-    st1 = shard_state(_random_state(solver), mesh1)
-    with pytest.raises(AssertionError, match="Pallas backend reached"):
-        solver.step_sharded_jit(mesh1)(st1)
-
-
 def _rand_pois(g, seed=5):
     rng = np.random.default_rng(seed)
     f = lambda s, sc: jnp.asarray(rng.uniform(-sc, sc, s).astype(np.float32))
@@ -308,63 +278,41 @@ def _rand_pois(g, seed=5):
     return pr, dpr, rhs
 
 
-@pytest.mark.parametrize("extended", [False, True])
-def test_shard_map_pallas_composition(extended):
-    """The fused Pallas kernel composed per-shard under shard_map on an
-    x-only mesh (VERDICT r1 #3): matches the single-device Pallas solve,
-    and its compiled HLO contains no all-gather (communication is
-    face-row collective-permutes + the residual all-reduce only)."""
+@pytest.mark.parametrize("variant", ["multi", "gpu"])
+def test_shard_map_x_only_matches_one_device(variant):
+    """The shard_map Poisson loop on an x-only mesh (the shape --mesh
+    auto prefers) matches the same distributed algorithm on a 1-device
+    mesh iteration for iteration, and its compiled HLO contains no
+    all-gather (communication is face-plane collective-permutes + the
+    residual all-reduce only)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    import dataclasses
     from navierstokes3d_tpu.parallel.halo import build_poisson_shard_map
-    preset = ns.preset_gpu if extended else ns.preset_multi
-    cfg = preset(nx=40, nt=1, compat=False, dtype="float32",
-                 use_pallas=True)
+    preset = ns.preset_gpu if variant == "gpu" else ns.preset_multi
+    cfg = preset(nx=40, nt=1, compat=False, dtype="float32")
     cfg = cfg.replace(numerics=dataclasses.replace(
-        cfg.numerics, niter_scale=1, stall_exit=False,
-        accuracy="extended" if extended else None))
+        cfg.numerics, niter_scale=1, stall_exit=False))
     solver = ns.ChorinSolver(cfg)
-    assert solver._pallas is not None
-    # accuracy=None now auto-selects the extended pair for no-split
-    # configs (the multi preset here), so _pallas_ext exists either way;
-    # the parametrized `extended` flag still controls the shard-map
-    # solve's kernel below.
-    if extended:
-        assert solver._pallas_ext is not None
     g = solver.grid
     pr, dpr, rhs = _rand_pois(g)
 
-    # 1-device-mesh reference: the same distributed algorithm, no
-    # decomposition (the single-chip hybrid solver interleaves a plain
-    # phase, so it is not iteration-for-iteration comparable)
-    mesh1 = make_mesh(shape=(1, 1, 1), devices=jax.devices()[:1])
-    solve1 = build_poisson_shard_map(
-        mesh1, g, cfg.physics, cfg.numerics.eps_it, cfg.variant,
-        jnp.float32, pressure_split=solver.pressure_split, stall=None,
-        use_pallas=True, extended=extended, interpret=True)
-    p_ref, d_ref, it_ref, err_ref, _ = jax.jit(solve1)(pr, dpr, rhs)
+    def build(shape):
+        mesh = make_mesh(shape=shape,
+                         devices=jax.devices()[:int(np.prod(shape))])
+        return jax.jit(build_poisson_shard_map(
+            mesh, g, cfg.physics, cfg.numerics.eps_it, cfg.variant,
+            jnp.float32, pressure_split=solver.pressure_split, stall=None))
 
-    class _Stats:
-        iters, err = it_ref, err_ref
-    st_ref = _Stats()
-
-    mesh = make_mesh(shape=(4, 1, 1), devices=jax.devices()[:4])
-    solve = build_poisson_shard_map(
-        mesh, g, cfg.physics, cfg.numerics.eps_it, cfg.variant,
-        jnp.float32, pressure_split=solver.pressure_split, stall=None,
-        use_pallas=True, extended=extended, interpret=True)
-    fn = jax.jit(solve)
-    p_sh, d_sh, iters, err, hist = fn(pr, dpr, rhs)
-    assert int(iters) == int(st_ref.iters)
+    p_ref, _, it_ref, err_ref, _ = build((1, 1, 1))(pr, dpr, rhs)
+    fn = build((4, 1, 1))
+    p_sh, _, iters, err, _ = fn(pr, dpr, rhs)
+    assert int(iters) == int(it_ref) > 0
     scale = max(1.0, float(jnp.abs(p_ref).max()))
     np.testing.assert_allclose(np.asarray(p_sh) / scale,
                                np.asarray(p_ref) / scale,
                                rtol=0, atol=1e-5)
-    np.testing.assert_allclose(float(err), float(st_ref.err),
+    np.testing.assert_allclose(float(err), float(err_ref),
                                rtol=1e-3, atol=1e-6)
-
-    # no all-gather anywhere in the distributed solve's HLO
     hlo = fn.lower(pr, dpr, rhs).compile().as_text()
     assert "all-gather" not in hlo, "Pr must never be gathered"
     assert "collective-permute" in hlo, "halo exchange must be ppermute"

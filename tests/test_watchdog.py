@@ -1,7 +1,7 @@
 """StallWatchdog (utils/timers.py): the wedged-runtime guard.
 
-A wedged remote-TPU runtime blocks forever inside a device call (the
-round-5 255-grid production run froze 29+ minutes mid-batch), so the
+A wedged device runtime blocks forever inside a device call (a
+255-grid production run once froze 29+ minutes mid-batch), so the
 watchdog's only safe action is os._exit — which kills the interpreter,
 so every firing test runs in a subprocess.
 """
