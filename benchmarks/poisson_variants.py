@@ -30,10 +30,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--nx", type=int, default=255)
     ap.add_argument("--iters", type=int, default=300)
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
 
     import navierstokes3d_tpu as ns
     from navierstokes3d_tpu.ops import physics as ph

@@ -15,6 +15,7 @@ What it prints (one JSON object per line on stdout, details in
 
 Usage: python benchmarks/sweep_trace.py [--preset gpu] [--nx 255]
        [--out chiprun_out/sweep_trace]
+It exits non-zero, having measured nothing, when JAX finds no GPU.
 """
 
 import argparse
@@ -105,19 +106,17 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "sweep_trace"))
-    ap.add_argument("--platform", default=None,
-                    help="e.g. cpu for a rehearsal (no device metrics)")
     args = ap.parse_args(argv)
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"sweep_trace: JAX found no GPU (platform "
+                         f"{dev.platform!r}); nothing was measured")
 
     import navierstokes3d_tpu as ns
     from navierstokes3d_tpu.ops.advect import advect
     from navierstokes3d_tpu.utils.cache import enable_compile_cache
     from navierstokes3d_tpu.utils.peaks import peak_hbm_gbps, pt_sweep_bytes
     enable_compile_cache()
-    dev = jax.devices()[0]
-    on_gpu = dev.platform == "gpu"
     os.makedirs(args.out, exist_ok=True)
     report = dict(device=dev.device_kind, platform=dev.platform)
 
@@ -156,26 +155,25 @@ def main(argv=None):
         state, stats = solver.step_jit(state)
         jax.block_until_ready(state.pr)
     n_it, n_ext = int(stats.iters), int(stats.iters_ext or 0)
-    if on_gpu:
-        path = sorted(glob.glob(os.path.join(tdir, "**", "*.xplane.pb"),
-                                recursive=True))[-1]
-        m = sweep_metrics(device_kernel_events(path), n_it)
-        pair = n_it - n_ext if solver.accuracy == "extended" else 0
-        bound_ns = ((pair * pt_sweep_bytes(cells, 4, True)
-                     + (n_it - pair) * pt_sweep_bytes(cells, 4, False))
-                    / (peak_hbm_gbps() * 1e9) / n_it * 1e9)
-        m.update(iters=n_it, iters_ext=n_ext, hbm_bound_ns_per_sweep=bound_ns)
-        if "device_ns_per_sweep" in m:
-            m["hbm_share"] = bound_ns / m["device_ns_per_sweep"]
-        emit(phase="trace", **{k: v for k, v in m.items()
-                               if k not in ("top_kernels",
-                                            "sweep_kernels")})
-        emit(phase="trace_kernels", sweep_kernels=[
-            (n[:60], v["count"], round(v["total_ns"] / n_it))
-            for n, v in m["sweep_kernels"].items()],
-            top=[(k["name"][:60], k["count"], round(k["total_ns"] / 1e3))
-                 for k in m["top_kernels"]])
-        report["trace_detail"] = m
+    path = sorted(glob.glob(os.path.join(tdir, "**", "*.xplane.pb"),
+                            recursive=True))[-1]
+    m = sweep_metrics(device_kernel_events(path), n_it)
+    pair = n_it - n_ext if solver.accuracy == "extended" else 0
+    bound_ns = ((pair * pt_sweep_bytes(cells, 4, True)
+                 + (n_it - pair) * pt_sweep_bytes(cells, 4, False))
+                / (peak_hbm_gbps() * 1e9) / n_it * 1e9)
+    m.update(iters=n_it, iters_ext=n_ext, hbm_bound_ns_per_sweep=bound_ns)
+    if "device_ns_per_sweep" in m:
+        m["hbm_share"] = bound_ns / m["device_ns_per_sweep"]
+    emit(phase="trace", **{k: v for k, v in m.items()
+                           if k not in ("top_kernels",
+                                        "sweep_kernels")})
+    emit(phase="trace_kernels", sweep_kernels=[
+        (n[:60], v["count"], round(v["total_ns"] / n_it))
+        for n, v in m["sweep_kernels"].items()],
+        top=[(k["name"][:60], k["count"], round(k["total_ns"] / 1e3))
+             for k in m["top_kernels"]])
+    report["trace_detail"] = m
     emit(phase="memory", peak_bytes_in_use=(
         dev.memory_stats() or {}).get("peak_bytes_in_use"))
 

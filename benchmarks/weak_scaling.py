@@ -87,7 +87,8 @@ def main(argv=None):
         if base_rate is None:
             base_rate = per_dev_rate
         eff = per_dev_rate / base_rate
-        rec = dict(mesh=mesh_str, devices=ndev, grid=f"{nx}x{ny}x{nz}",
+        rec = dict(device=jax.devices()[0].device_kind,
+                   mesh=mesh_str, devices=ndev, grid=f"{nx}x{ny}x{nz}",
                    iters_per_sec=round(rate, 1),
                    cell_iters_per_sec_per_device=round(per_dev_rate, 0),
                    weak_scaling_efficiency=round(eff, 4),

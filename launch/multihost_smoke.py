@@ -58,7 +58,7 @@ def main(argv=None):
     cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
                                                    niter_scale=2))
     solver = ns.ChorinSolver(cfg)
-    sh = state_shardings(mesh)
+    sh = state_shardings(mesh, solver.grid.shape_c)
     # jit-init with out_shardings: every process computes only its
     # addressable shards; nothing is scattered from any single host
     state = jax.jit(solver.init_state, out_shardings=sh)()

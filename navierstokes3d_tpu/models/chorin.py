@@ -802,7 +802,7 @@ class ChorinSolver:
             return pr, dprdtau, StepStats(iters=iters, err=err,
                                           err_hist=hist)
 
-        sh = state_shardings(mesh)
+        sh = state_shardings(mesh, self.grid.shape_c)
         rep = replicated(mesh)
         stats_sh = StepStats(iters=rep, err=rep, err_hist=rep,
                              advect_clamped=rep)

@@ -79,7 +79,7 @@ def make_mesh(shape: Optional[Tuple[int, int, int]] = None,
     return Mesh(dev_array, AXES)
 
 
-def state_shardings(mesh: Mesh, shape_c=None) -> FlowState:
+def state_shardings(mesh: Mesh, shape_c) -> FlowState:
     """Sharding layout for the global-view path.
 
     Cell-centered fields shard over all three mesh axes. Staggered
@@ -91,25 +91,22 @@ def state_shardings(mesh: Mesh, shape_c=None) -> FlowState:
     plane) and shards all three axes, so its memory truly scales 1/N.
 
     shape_c: the cell-centered grid shape (nx, ny, nz). JAX shards a
-    dimension only when the mesh axis divides it, so with shape_c given
-    a field stays replicated along every mesh axis that does not divide
-    its dimension (at 255x153x153 no axis of a 4-device mesh divides:
-    every field is then replicated, see unsharded_axes).
+    dimension only when the mesh axis divides it, so a field stays
+    replicated along every mesh axis that does not divide its dimension
+    (unsharded_axes; run.py refuses a mesh on which that is every axis).
     """
-    nx, ny, nz = shape_c if shape_c is not None else (None,) * 3
+    nx, ny, nz = shape_c
 
     def spec(names, shape):
         return NamedSharding(mesh, P(*(
-            n if (n is None or shape[d] is None
-                  or shape[d] % mesh.shape[n] == 0) else None
+            n if (n is None or shape[d] % mesh.shape[n] == 0) else None
             for d, n in enumerate(names))))
 
     cell = spec(AXES, (nx, ny, nz))
-    plus1 = lambda n: None if n is None else n + 1
     return FlowState(pr=cell, c=cell, dprdtau=cell,
-                     vx=spec((None, "y", "z"), (plus1(nx), ny, nz)),
-                     vy=spec(("x", None, "z"), (nx, plus1(ny), nz)),
-                     vz=spec(("x", "y", None), (nx, ny, plus1(nz))))
+                     vx=spec((None, "y", "z"), (nx + 1, ny, nz)),
+                     vy=spec(("x", None, "z"), (nx, ny + 1, nz)),
+                     vz=spec(("x", "y", None), (nx, ny, nz + 1)))
 
 
 def unsharded_axes(mesh: Mesh, shape_c) -> Tuple[str, ...]:

@@ -241,8 +241,16 @@ def main(argv=None):
         # a mesh may use the first prod(shape) of the visible devices
         mesh = make_mesh(shape=shape,
                          devices=jax.devices()[:int(np.prod(shape))])
-        from navierstokes3d_tpu.parallel.mesh import unsharded_axes
+        from navierstokes3d_tpu.parallel.mesh import AXES, unsharded_axes
         odd = unsharded_axes(mesh, g.shape_c)
+        split = [a for a, p in zip(AXES, shape) if p > 1]
+        if split and set(split) <= set(odd):
+            raise SystemExit(
+                f"--mesh {args.mesh}: grid {g.nx}x{g.ny}x{g.nz} splits "
+                f"evenly along no axis of mesh {'x'.join(map(str, shape))}"
+                f", so every field would be replicated on all {mesh.size}"
+                " devices; choose a mesh whose axes divide the grid (or "
+                "a grid they divide)")
         if odd and not args.quiet:
             print(f"mesh {'x'.join(map(str, shape))}: grid "
                   f"{g.nx}x{g.ny}x{g.nz} does not split evenly along "

@@ -16,7 +16,7 @@ from typing import Optional
 import jax
 import numpy as np
 
-from .peaks import peak_hbm_gbps
+from . import peaks
 from .timers import RunTimer, poisson_roofline_iters_per_sec
 
 
@@ -32,12 +32,11 @@ def trace(log_dir: str = "/tmp/ns3d_trace"):
 
 
 def profile_steps(solver, state, n_steps: int = 3,
-                  trace_dir: Optional[str] = None,
-                  hbm_gbps: Optional[float] = None) -> dict:
+                  trace_dir: Optional[str] = None) -> dict:
     """Run n_steps jitted solver steps (assumes the step is already
-    compiled/warm) and return timing + roofline summary. hbm_gbps
-    defaults to the device's published peak (utils/peaks.py; an
-    unknown device raises)."""
+    compiled/warm) and return timing + roofline summary against the
+    device's published HBM peak (utils/peaks.py; an unknown device
+    raises)."""
     timer = RunTimer()
     ctx = trace(trace_dir) if trace_dir else contextlib.nullcontext()
     with ctx:
@@ -49,9 +48,8 @@ def profile_steps(solver, state, n_steps: int = 3,
     g = solver.grid
     summary = timer.summary(skip_first=0)
     itemsize = np.dtype(solver.dtype).itemsize
-    roof = poisson_roofline_iters_per_sec(
-        g.nx * g.ny * g.nz, itemsize,
-        peak_hbm_gbps() if hbm_gbps is None else hbm_gbps)
+    roof = poisson_roofline_iters_per_sec(g.nx * g.ny * g.nz, itemsize,
+                                          peaks.peak_hbm_gbps())
     summary["roofline_iters_per_sec"] = roof
     summary["roofline_fraction"] = (
         summary.get("poisson_iters_per_sec", 0.0) / roof)

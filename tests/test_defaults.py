@@ -82,6 +82,18 @@ def test_auto_comm_cli_prints_fullstep(capsys, monkeypatch):
     assert "--comm auto -> fullstep" in err
 
 
+@pytest.mark.parametrize("mesh", ["auto", "4x1x1", "2x2x2"])
+def test_mesh_that_splits_nothing_is_refused(mesh):
+    """At 15x9x9 no axis of these meshes divides the grid; run.py refuses
+    rather than run one replicated copy per device."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    from navierstokes3d_tpu.run import main
+    with pytest.raises(SystemExit, match="splits evenly along no axis"):
+        main(["--preset", "gpu", "--nx", "15", "--nt", "1", "--quiet",
+              "--mesh", mesh])
+
+
 def test_fdm_comm_routing_cli():
     """run.py refuses --poisson-backend fdm with an explicit shard_map/
     fullstep schedule (they would silently run their own PT loop), and

@@ -127,6 +127,14 @@ def test_bench_refuses_cpu():
     assert r.stdout.strip() == ""
 
 
+def test_sweep_trace_refuses_cpu(tmp_path):
+    r = _run([os.path.join("benchmarks", "sweep_trace.py"),
+              "--out", str(tmp_path)])
+    assert r.returncode != 0
+    assert "no GPU" in r.stderr
+    assert r.stdout.strip() == ""
+
+
 def test_run_without_vis_needs_no_plotting(tmp_path):
     """run.py imports matplotlib/PIL only for --vis/--animate."""
     code = ("import sys\n"

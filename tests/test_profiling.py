@@ -10,15 +10,18 @@ import navierstokes3d_tpu as ns
 from navierstokes3d_tpu.utils.profiling import profile_steps, trace
 
 
-def test_profile_steps_summary_and_trace(tmp_path):
+def test_profile_steps_summary_and_trace(tmp_path, monkeypatch):
+    import jax
+    from navierstokes3d_tpu.utils import peaks
     cfg = ns.preset_multi(nx=9, nt=1, compat=False, dtype="float32")
     s = ns.ChorinSolver(cfg)
     state = s.init_state()
     state, _ = s.step_jit(state)   # warm (profile assumes compiled)
-    # the CPU has no entry in the peak table (utils/peaks.py): pass a
+    # the CPU has no entry in the peak table (utils/peaks.py): give it a
     # nominal rate, which only exercises the roofline arithmetic
-    out = profile_steps(s, state, n_steps=2, trace_dir=str(tmp_path / "tr"),
-                        hbm_gbps=50.0)
+    monkeypatch.setitem(peaks.PEAKS, jax.devices()[0].device_kind,
+                        {"hbm_gbps": 50.0})
+    out = profile_steps(s, state, n_steps=2, trace_dir=str(tmp_path / "tr"))
     assert out["poisson_iters_per_sec"] > 0
     assert out["time_per_step_s"] > 0
     assert out["roofline_iters_per_sec"] > 0
@@ -35,8 +38,8 @@ def test_trace_context_manager(tmp_path):
 
 
 def test_profile_steps_refuses_unknown_device_peak():
-    """Without an explicit rate, a device missing from the peak table
-    (here the CPU) is an error, never an assumed peak."""
+    """A device missing from the peak table (here the CPU) is an error,
+    never an assumed peak."""
     import pytest
     s = ns.ChorinSolver(ns.preset_multi(nx=9, nt=1, compat=False,
                                         dtype="float32"))
